@@ -2,10 +2,17 @@
 
 Deterministic-resume checkpointing of the full pytree (params, batch stats,
 optimizer state, PRNG key) plus scalar metadata, replacing the reference's
-``torch.save`` dict (engine/prediction.py:159-182).  Uses flax msgpack
-serialization (host-independent, no pickle of arrays); unlike the reference,
-optimizer/schedule state fully round-trips (the reference saves but never
-restores its scheduler, prediction.py:159-169).
+``torch.save`` dict (engine/prediction.py:159-182).  A checkpoint is one
+``.npz`` archive: one array per leaf, named by its tree path
+(``params/conv_st_in/block/spatial/wf``, ``opt_state/inner_state/0/mu/...``),
+plus a JSON member holding the caller's payload and the PRNG
+implementation of every typed key.  No pickle is involved, and unlike the
+reference the optimizer/schedule state fully round-trips (the reference
+saves but never restores its scheduler, prediction.py:159-169).
+
+Restoring checks the archive against the live state: a missing or extra
+path, a shape or dtype change, or a dropout key of another PRNG
+implementation raises ``ValueError`` naming the leaves at fault.
 """
 
 from __future__ import annotations
@@ -16,87 +23,74 @@ from typing import Any, Dict, Tuple
 
 import jax
 import numpy as np
-from flax import serialization
 
 __all__ = ["save_checkpoint", "restore_checkpoint"]
 
-
-def _unkey(tree):
-    """Typed PRNG keys -> raw uint32 data (msgpack-serializable)."""
-    return jax.tree.map(
-        lambda x: jax.random.key_data(x)
-        if hasattr(x, "dtype") and jax.dtypes.issubdtype(
-            x.dtype, jax.dtypes.prng_key) else x, tree)
+_META = "__meta__"
 
 
-def _rekey(tree, target):
-    """Re-wrap raw key data where the target holds typed PRNG keys.
-
-    The wrap must use the TARGET key's impl — ``wrap_key_data`` defaults
-    to threefry, which rejects the (4,)-word key data of the ``rbg``
-    dropout keys the tuned configs ship (``engine.prng_impl: rbg``).  A
-    cross-impl restore (e.g. a threefry-era checkpoint resumed under an
-    rbg config, or vice versa) has incompatible key-data shapes; rather
-    than crash the resume, keep the engine's current key — only the
-    dropout stream changes, which carries no model/optimizer state.
-    """
-    def rewrap(x, t):
-        if not (hasattr(t, "dtype") and jax.dtypes.issubdtype(
-                t.dtype, jax.dtypes.prng_key)):
-            return x
-        try:
-            return jax.random.wrap_key_data(
-                jnp_asarray_u32(x), impl=jax.random.key_impl(t))
-        except (TypeError, ValueError):
-            return t   # impl mismatch: keep the live key (fresh stream)
-
-    return jax.tree.map(rewrap, tree, target)
+def _path_str(path) -> str:
+    parts = []
+    for k in path:
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+        else:
+            parts.append(str(k))
+    return "/".join(parts)
 
 
-def jnp_asarray_u32(x):
-    import jax.numpy as jnp
-    return jnp.asarray(x, jnp.uint32)
+def _is_key(x) -> bool:
+    return hasattr(x, "dtype") and jax.dtypes.issubdtype(
+        x.dtype, jax.dtypes.prng_key)
 
 
 def save_checkpoint(path: str, state: Any, payload: Dict[str, Any]) -> None:
-    blob = serialization.to_bytes(_unkey(jax.device_get(state)))
-    meta = json.dumps(payload).encode()
+    arrays, impls = {}, {}
+    for p, leaf in jax.tree_util.tree_flatten_with_path(state)[0]:
+        name = _path_str(p)
+        if _is_key(leaf):
+            impls[name] = str(jax.random.key_impl(leaf))
+            leaf = jax.random.key_data(leaf)
+        arrays[name] = np.asarray(jax.device_get(leaf))
+    arrays[_META] = np.asarray(json.dumps(
+        dict(payload=payload, prng_impls=impls)))
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(len(meta).to_bytes(8, "little"))
-        f.write(meta)
-        f.write(blob)
+        np.savez(f, **arrays)
     os.replace(tmp, path)  # atomic publish: no torn checkpoints on failure
 
 
-def _alt_key_width(unkeyed, target):
-    """Swap PRNG key-data trailing width (2,)<->(4,) in the restore
-    template: a checkpoint written under a different ``engine.prng_impl``
-    (threefry keys are 2 uint32 words, rbg keys 4) otherwise fails
-    msgpack shape validation before _rekey can handle it."""
-    def alt(x, t):
-        if hasattr(t, "dtype") and jax.dtypes.issubdtype(
-                t.dtype, jax.dtypes.prng_key):
-            w = 2 if x.shape[-1] == 4 else 4
-            return np.zeros(x.shape[:-1] + (w,), np.uint32)
-        return x
-
-    return jax.tree.map(alt, unkeyed, target)
-
-
 def restore_checkpoint(path: str, target: Any) -> Tuple[Any, Dict[str, Any]]:
-    with open(path, "rb") as f:
-        n = int.from_bytes(f.read(8), "little")
-        payload = json.loads(f.read(n).decode())
-        blob = f.read()
-    target = jax.device_get(target)
-    unkeyed = _unkey(target)
-    try:
-        raw = serialization.from_bytes(unkeyed, blob)
-    except ValueError:
-        # dropout key saved under a different prng impl: retry with the
-        # alternate key-data width; _rekey then keeps the live key
-        raw = serialization.from_bytes(_alt_key_width(unkeyed, target),
-                                       blob)
-    state = _rekey(raw, target)
-    return state, payload
+    """Load ``path`` into the structure of ``target`` (host arrays)."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(str(z[_META]))
+        stored = {k: z[k] for k in z.files if k != _META}
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(target)
+    names = [_path_str(p) for p, _ in leaves]
+    missing = sorted(set(names) - set(stored))
+    extra = sorted(set(stored) - set(names))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint {path} does not match the model state: missing "
+            f"{missing[:8]}{'...' if len(missing) > 8 else ''}, unexpected "
+            f"{extra[:8]}{'...' if len(extra) > 8 else ''}")
+    out = []
+    for name, (_, live) in zip(names, leaves):
+        arr = stored[name]
+        if _is_key(live):
+            impl = str(jax.random.key_impl(live))
+            saved = meta["prng_impls"].get(name)
+            if saved != impl:
+                raise ValueError(
+                    f"checkpoint {path}: {name} is a {saved} PRNG key but "
+                    f"the engine uses {impl}; set engine.prng_impl to match")
+            out.append(jax.random.wrap_key_data(arr, impl=impl))
+            continue
+        if arr.shape != np.shape(live) or arr.dtype != live.dtype:
+            raise ValueError(
+                f"checkpoint {path}: {name} is {arr.dtype}{list(arr.shape)}"
+                f" but the model has {live.dtype}{list(np.shape(live))}")
+        out.append(arr)
+    return jax.tree_util.tree_unflatten(treedef, out), meta["payload"]

@@ -1,50 +1,33 @@
 """Measured per-shape performance-knob selection ("auto" knobs).
 
-Round-4/5 benchmarking (``BENCH_r05_session.json`` ``detail.shapes`` + train rows,
-committed each round as ``BENCH_r*.json``) showed the tuned knobs are
-SHAPE-DEPENDENT on a v5e chip:
+``bench.py --autotune`` times three settings interleaved on the card —
+float32 (TF32 dots at default precision), bfloat16 compute, and bfloat16
+with (5, 2) block-diagonal grouped aggregation — for the flagship H36M
+train step and eval forward.  Medians on one NVIDIA H100 80GB HBM3 at a
+400 W power limit, two sweeps (7 and 15 rounds; full rows in CHANGES.md):
 
-  ==============  =======================  ============================
-  batch regime    winner                   evidence (BENCH_r05_session.json, r5)
-  ==============  =======================  ============================
-  batch < 64      plain f32                b1_serving: f32 0.478 ms vs
-                                           bf16 0.479 / tuned_g 0.521
-                                           (cast + grouping overhead
-                                           dominate at tiny batch); and
-                                           at the shipped TRAIN batch
-                                           32, train_step_ms_b32 13.4
-                                           (f32) vs _b32_tuned 18.3 —
-                                           the tuned knobs lose the
-                                           whole train step under-
-                                           filled
-  batch >= 512    bf16, NO grouping        b1024_h36m: bf16 56.9 ms vs
-                                           tuned_g 70.3 (block-diagonal
-                                           FLOP waste dominates once the
-                                           MXU is saturated); b512 f32
-                                           27.1 vs bf16 27.4 forward is
-                                           a tie, but the b512 TRAIN
-                                           step is decisive (PROBES_r05
-                                           train_b512: bf16 170.8 vs
-                                           f32 237.5 / grouped 198.6)
-  otherwise       bf16 + (5, 2) grouped    b128 flagship 4.64 ms vs 6.14
-                  aggregation              ungrouped; cmu/3dpw rows
-                                           1.42-1.62x reference-style
-  ==============  =======================  ============================
+  ==============  =========  =========  ===========  =========
+  cell            f32 ms     bf16 ms    bf16+(5,2)   winner
+  ==============  =========  =========  ===========  =========
+  train b32       9.742      10.202     11.702       f32
+  train b32       9.942      9.880      10.366       (tie)
+  train b64       13.093     11.777     14.287       bf16
+  train b128      21.706     17.485     25.289       bf16
+  eval b1         0.302      0.273      0.285        (tie)
+  eval b1         0.375      0.348      0.328        (tie)
+  eval b512       9.134      5.972      7.869        bf16
+  ==============  =========  =========  ===========  =========
 
-A user scaling the batch under a static tuned config would silently keep
-the losing knobs (VERDICT r4 weak #7) — ``agg_group_spatial: auto`` (and
-friends) in the model config resolve to the measured winner from the
-batch size at trace time instead.  The resolution is static per compiled
-shape: batch size is a trace-time constant under ``jit``, so each batch
-size compiles with its own winning knobs and no runtime dispatch exists.
-The <64 boundary is set by the measured b32 train rows vs the b128
-sweep; 64 itself measured a tie with tuned slightly ahead (interleaved
-pairs, PROBES_r05: tuned 31.5/32.1 ms vs f32 32.3/32.6) and is assigned
-to the tuned regime.
+The block-diagonal grouping (built to widen tiny per-item matrix
+products) never wins a cell outside the run-to-run spread, so "auto"
+never groups.  bf16 wins from batch 64 up.  Below 64 no setting wins
+twice (the gaps lie inside each setting's spread), so the small batches
+keep float32, the more precise setting.
 
-Reference anchor: the reference has no equivalent (its configs hard-code
-one CUDA code path, configs/dstdgcn/dstdgcn_h36m.yaml); this is the
-TPU-side shape policy for the same model family.
+The resolution is static per compiled shape: batch size is a trace-time
+constant under ``jit``, so each batch size compiles with its own knobs and
+no runtime dispatch exists.  A config sets ``compute_dtype: auto`` (and
+friends) to follow this table; explicit values pass through untouched.
 """
 
 from __future__ import annotations
@@ -56,22 +39,16 @@ AUTO_KNOBS = ("compute_dtype", "agg_group_spatial", "agg_group_temporal")
 
 
 def resolve_auto(batch_size: int) -> Dict[str, Any]:
-    """Measured v5e winners for a given batch size (table above)."""
-    if batch_size < 64:
-        return dict(compute_dtype=None, agg_group_spatial=None,
-                    agg_group_temporal=None)
-    if batch_size >= 512:
-        return dict(compute_dtype="bfloat16", agg_group_spatial=None,
-                    agg_group_temporal=None)
-    return dict(compute_dtype="bfloat16", agg_group_spatial=5,
-                agg_group_temporal=2)
+    """The H100 winners for a given batch size (table above)."""
+    return dict(compute_dtype=None if batch_size < 64 else "bfloat16",
+                agg_group_spatial=None, agg_group_temporal=None)
 
 
 def per_chip_batch(batch_size: int) -> int:
-    """Per-chip batch: the measured winners are PER-CHIP shapes, but a
-    traced ``x.shape[0]`` under GSPMD is the GLOBAL batch — divide by the
-    active mesh's data-axis size so e.g. global 256 over data=8 resolves
-    as the batch-32 regime it actually computes per chip."""
+    """Per-device batch: the measured winners are PER-DEVICE shapes, but
+    a traced ``x.shape[0]`` under GSPMD is the GLOBAL batch — divide by
+    the active mesh's data-axis size so e.g. global 256 over data=8
+    resolves as the batch-32 regime it actually computes per device."""
     from ..parallel.mesh import _ACTIVE_MESH
     mesh = _ACTIVE_MESH.get()
     if mesh is None:
@@ -87,7 +64,7 @@ def resolve_knob(name: str, value: Union[str, int, None],
     ``batch_hint`` (the configured batch size, plumbed by the runner as
     ``auto_batch_hint``) overrides the traced shape so (a) a ragged final
     batch does not flip the knobs mid-run — one step per epoch silently
-    trading bf16 for f32 AND paying a fresh remote compile — and (b) all
+    trading bf16 for f32 AND paying a fresh compile — and (b) all
     shapes of a run share one knob set.  The hint is the PER-PROCESS
     loader batch, while the traced shape and the mesh data axis are
     global — multiply by process_count so both inputs reach

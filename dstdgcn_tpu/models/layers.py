@@ -1,26 +1,40 @@
-"""Flax building blocks for the DSTD-GCN family.
+"""Functional building blocks for the DSTD-GCN family.
 
 Channels-last ``(N, T, V, C)`` modules whose math matches the reference
 PyTorch layers (``/root/reference/model/dstdgcn.py``) while being idiomatic
-JAX: parameters are pytrees, the per-kernel Python loops of the reference
-become stacked kernel axes, and everything composes under ``jit``/``pjit``.
+JAX: each module is a frozen dataclass of hyper-parameters with an
+``init`` that builds its parameter (and BatchNorm statistic) subtrees as
+nested dicts and an ``apply`` that is a pure function of them.  The
+per-kernel Python loops of the reference become stacked kernel axes, and
+everything composes under ``jit``/``shard_map``.
+
+Stateful modules (those holding BatchNorm statistics) return
+``(params, batch_stats)`` from ``init`` and ``(out, new_batch_stats)``
+from ``apply``; stateless ones return ``params`` and ``out``.  The tree
+paths (``conv_st_in/block/spatial/wf``, ``encoder_bn_0/scale`` ...) are
+the ones the checkpoint format, ``utils/convert.py`` and the
+``parallel/mesh.py`` sharding rules key on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import linen as nn
 
 from ..graphs import skeleton as sk
 from ..graphs import temporal as tg
 from ..ops import dstd as ops
 
 Array = jax.Array
+Tree = Dict[str, Any]
+
+_zeros = jax.nn.initializers.zeros
+_ones = jax.nn.initializers.ones
 
 
 def kaiming_out(fan_out: int) -> Callable:
@@ -28,12 +42,7 @@ def kaiming_out(fan_out: int) -> Callable:
     ``nn.init.kaiming_normal_(w, mode='fan_out')`` for a 1x1 conv
     (reference dstdgcn.py:14-17).  ``fan_out`` is passed explicitly because
     our kernels carry a leading stacked-kernel axis."""
-    std = float(np.sqrt(2.0 / fan_out))
-
-    def init(key, shape, dtype=jnp.float32):
-        return std * jax.random.normal(key, shape, dtype)
-
-    return init
+    return jax.nn.initializers.normal(stddev=float(np.sqrt(2.0 / fan_out)))
 
 
 def uniform_pm(bound: float) -> Callable:
@@ -45,17 +54,34 @@ def uniform_pm(bound: float) -> Callable:
     return init
 
 
-def constant_init(value: np.ndarray) -> Callable:
-    arr = jnp.asarray(value)
-
-    def init(key, shape, dtype=jnp.float32):
-        assert tuple(shape) == arr.shape, (shape, arr.shape)
-        return arr.astype(dtype)
-
-    return init
+def _dense_init(key, cin: int, co: int) -> Tree:
+    """``{"kernel": (cin, co), "bias": (co,)}`` of a channels-last dense
+    projection (a 1x1 conv of the reference)."""
+    return {"kernel": kaiming_out(co)(key, (cin, co), jnp.float32),
+            "bias": _zeros(key, (co,), jnp.float32)}
 
 
-class JointBatchNorm(nn.Module):
+def _dense(p: Tree, x: Array) -> Array:
+    dtype = jnp.result_type(x, p["kernel"])
+    y = jax.lax.dot_general(x.astype(dtype), p["kernel"].astype(dtype),
+                            (((x.ndim - 1,), (0,)), ((), ())))
+    return y + p["bias"].astype(dtype).reshape((1,) * (y.ndim - 1) + (-1,))
+
+
+def dropout(x: Array, rate: float, key: Optional[Array]) -> Array:
+    """Inverted dropout (torch ``nn.Dropout`` semantics); identity when
+    ``rate`` is 0."""
+    if rate == 0.0:
+        return x
+    if key is None:
+        raise ValueError("train-mode dropout needs a PRNG key")
+    keep = 1.0 - rate
+    mask = jax.random.bernoulli(key, p=keep, shape=x.shape)
+    return jax.lax.select(mask, x / keep, jnp.zeros_like(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class JointBatchNorm:
     """BatchNorm over (channel, joint) pairs across batch x time.
 
     Equivalent to the reference ``BatchNorm`` wrapper around
@@ -63,9 +89,9 @@ class JointBatchNorm(nn.Module):
     (c, v) feature is normalized over the N*T samples, with torch
     momentum/eps defaults and running statistics.
 
-    TPU-first details: operates directly on channels-last (N, T, V, C)
-    without the permute/reshape dance, and supports cross-replica statistics
-    via ``axis_name`` (``psum`` over the data mesh axis) so distributed
+    Operates directly on channels-last (N, T, V, C) without the
+    permute/reshape dance, and supports cross-replica statistics via
+    ``axis_name`` (``pmean`` over a ``shard_map`` data axis) so distributed
     training reproduces single-device dynamics at the same global batch.
     """
 
@@ -74,16 +100,15 @@ class JointBatchNorm(nn.Module):
     axis_name: Optional[str] = None
     dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array, *, train: bool) -> Array:
-        v, c = x.shape[-2], x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (v, c), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (v, c), jnp.float32)
-        ra_mean = self.variable("batch_stats", "mean",
-                                lambda: jnp.zeros((v, c), jnp.float32))
-        ra_var = self.variable("batch_stats", "var",
-                               lambda: jnp.ones((v, c), jnp.float32))
+    def init(self, v: int, c: int) -> Tuple[Tree, Tree]:
+        params = {"scale": jnp.ones((v, c), jnp.float32),
+                  "bias": jnp.zeros((v, c), jnp.float32)}
+        stats = {"mean": jnp.zeros((v, c), jnp.float32),
+                 "var": jnp.ones((v, c), jnp.float32)}
+        return params, stats
 
+    def apply(self, params: Tree, stats: Tree, x: Array, *,
+              train: bool) -> Tuple[Array, Tree]:
         if train:
             xf = x.astype(jnp.float32)
             cnt = x.shape[0] * x.shape[1]
@@ -95,31 +120,32 @@ class JointBatchNorm(nn.Module):
                 mean_sq = jax.lax.pmean(mean_sq, self.axis_name)
                 cnt = cnt * jax.lax.psum(1, self.axis_name)
             var = mean_sq - mean * mean  # biased, used for normalization
-            if not self.is_initializing():
-                unbiased = var * (cnt / max(cnt - 1, 1))
-                m = self.momentum
-                ra_mean.value = (1 - m) * ra_mean.value + m * mean
-                ra_var.value = (1 - m) * ra_var.value + m * unbiased
+            unbiased = var * (cnt / max(cnt - 1, 1))
+            m = self.momentum
+            stats = {"mean": (1 - m) * stats["mean"] + m * mean,
+                     "var": (1 - m) * stats["var"] + m * unbiased}
         else:
-            mean, var = ra_mean.value, ra_var.value
+            mean, var = stats["mean"], stats["var"]
+        inv = jax.lax.rsqrt(var + self.eps) * params["scale"]
+        return ((x - mean) * inv + params["bias"]).astype(self.dtype), stats
 
-        inv = jax.lax.rsqrt(var + self.eps) * scale
-        return ((x - mean) * inv + bias).astype(self.dtype)
 
-
-class PReLU(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class PReLU:
     """Single-parameter PReLU, torch default init 0.25 (dstdgcn.py:132)."""
 
-    init: float = 0.25
+    init_value: float = 0.25
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
-        a = self.param("negative_slope",
-                       lambda key: jnp.asarray(self.init, jnp.float32))
+    def init(self) -> Tree:
+        return {"negative_slope": jnp.asarray(self.init_value, jnp.float32)}
+
+    def apply(self, params: Tree, x: Array) -> Array:
+        a = params["negative_slope"]
         return jnp.where(x >= 0, x, a.astype(x.dtype) * x)
 
 
-class DSTDGC(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DSTDGC:
     """Stacked Dynamic SpatioTemporal Decompose Graph Convolution.
 
     One module evaluates K reference ``DSTDGC`` units (dstdgcn.py:53-94) in
@@ -133,103 +159,62 @@ class DSTDGC(nn.Module):
     red_channels: int = 2
     mode: str = "spatial"
     agg: str = "right"      # "right"=qualitative, "left"=fast variant
-    #: False | True | 'spatial' | 'temporal' | 'serving'.  'serving' routes
-    #: the fused kernels only when NOT training: Pallas-in-training is a
-    #: measured structural regression on v5e (the custom_vjp forward pays
-    #: the per-op grid pipeline AND the backward replays the oracle —
-    #: probe r4: 67-88 ms vs 40 ms XLA at batch 128)
-    use_pallas: Union[bool, str] = False
     compute_dtype: Optional[str] = None   # e.g. "bfloat16" (f32 accum)
-    #: flat (P*P)-lane score layout (ops.dstd): True/False for both ops or
-    #: 'spatial'/'temporal' for one side ('spatial' is the measured v5e win)
+    #: flat (P*P) pair layout (ops.dstd): True/False for both ops or
+    #: 'spatial'/'temporal' for one side
     pair_flat: Union[bool, str] = False
     #: block-diagonal grouped aggregation (ops.dstd agg_group): packs g
-    #: frames (spatial) / joints (temporal) per MXU matmul
+    #: frames (spatial) / joints (temporal) per matmul
     agg_group: Optional[int] = None
-    #: jax.checkpoint the op: True recomputes EVERY intermediate in the
-    #: backward (pairwise scores / projected features / dynamic
-    #: adjacency) — the op is FLOP-cheap (~3% of the MXU roofline) but
-    #: HBM-heavy, so full rematerialization cuts live memory ~4x per
-    #: block and lets the train step run at much larger batch (a MEMORY
-    #: knob: measured slower at b128, PROBES_r04).  "dots" uses the
-    #: dots_saveable policy: matmul outputs (projections, mixing,
-    #: aggregation) are saved, only the elementwise tanh-broadcast score
-    #: tensor is recomputed — a finer memory/time trade, but ALSO
-    #: measured slower at b128 (46.7 vs 37.6 ms, PROBES_r05
-    #: train_remat_dots): the recompute re-pays the invariant VPU score
-    #: cost.  Both modes are memory knobs only.
+    #: jax.checkpoint the op — a memory knob: True recomputes every
+    #: intermediate (pairwise scores, projected features, dynamic
+    #: adjacency) in the backward; "dots" saves the matmul outputs and
+    #: recomputes only the elementwise tanh-broadcast score tensor
     remat: Union[bool, str] = False
 
-    @nn.compact
-    def __call__(self, x: Array, base_adj: Array, alpha: Array,
-                 mask: Optional[Array] = None, *,
-                 train: Optional[bool] = None) -> Array:
-        if train is None:
-            # 'serving' gates the Pallas routing on train-ness, so a
-            # caller omitting ``train`` would silently select the eval
-            # (Pallas) path in a training context — the measured ~2x
-            # regression the knob exists to avoid (ADVICE r4).  Require
-            # it explicitly there; elsewhere the default is eval.
-            if self.use_pallas == "serving":
-                raise ValueError(
-                    "use_pallas='serving' routes kernels by train-ness; "
-                    "pass train=True/False explicitly")
-            train = False
-        assert self.mode in ("spatial", "temporal")
-        k, cin = self.num_kernels, x.shape[-1]
-        co, r, ref = self.out_channels, self.red_channels, self.ref_len
-
-        wf = self.param("wf", kaiming_out(co), (k, cin, co))
-        bf = self.param("bf", nn.initializers.zeros, (k, co), jnp.float32)
-        wm1 = self.param("wm1", kaiming_out(r), (k, cin, r))
-        bm1 = self.param("bm1", nn.initializers.zeros, (k, r), jnp.float32)
-        wm2 = self.param("wm2", kaiming_out(r), (k, cin, r))
-        bm2 = self.param("bm2", nn.initializers.zeros, (k, r), jnp.float32)
-        wrm = self.param("wrm", kaiming_out(ref), (k, r, ref, ref))
-        brm = self.param("brm", nn.initializers.zeros, (k, ref), jnp.float32)
-
-        args = (x, base_adj, alpha, wf, bf, wm1, bm1, wm2, bm2, wrm, brm,
-                mask)
-        if self.use_pallas not in (True, False, "spatial", "temporal",
-                                   "serving"):
-            raise ValueError(
-                f"use_pallas={self.use_pallas!r}: expected True, False, "
-                "'spatial', 'temporal' or 'serving' (a typo would "
-                "otherwise silently select the default path)")
+    def __post_init__(self):
+        if self.mode not in ("spatial", "temporal"):
+            raise ValueError(f"mode={self.mode!r}")
         if self.pair_flat not in (True, False, "spatial", "temporal"):
             raise ValueError(
                 f"pair_flat={self.pair_flat!r}: expected True, False, "
                 "'spatial' or 'temporal'")
-        # use_pallas: True routes both ops through the fused kernels;
-        # "spatial" routes only the spatial op; "serving" routes both ops
-        # but ONLY outside training (see the attribute docstring)
-        use_pallas = self.use_pallas and (
-            self.use_pallas is True
-            or self.use_pallas == self.mode
-            or (self.use_pallas == "serving" and not train))
+
+    def init(self, key: Array, cin: int) -> Tree:
+        k, co = self.num_kernels, self.out_channels
+        r, ref = self.red_channels, self.ref_len
+        kf, k1, k2, kr = jax.random.split(key, 4)
+        f32 = jnp.float32
+        return {"wf": kaiming_out(co)(kf, (k, cin, co), f32),
+                "bf": _zeros(kf, (k, co), f32),
+                "wm1": kaiming_out(r)(k1, (k, cin, r), f32),
+                "bm1": _zeros(k1, (k, r), f32),
+                "wm2": kaiming_out(r)(k2, (k, cin, r), f32),
+                "bm2": _zeros(k2, (k, r), f32),
+                "wrm": kaiming_out(ref)(kr, (k, r, ref, ref), f32),
+                "brm": _zeros(kr, (k, ref), f32)}
+
+    def apply(self, params: Tree, x: Array, base_adj: Array, alpha: Array,
+              mask: Optional[Array] = None) -> Array:
+        p = params
+        fn = ops.dstd_spatial if self.mode == "spatial" else ops.dstd_temporal
         dtype = (None if self.compute_dtype is None
                  else jnp.dtype(self.compute_dtype))
-        if use_pallas:
-            from ..kernels import fused as fk
-            fn = (fk.dstd_spatial if self.mode == "spatial"
-                  else fk.dstd_temporal)
-            call = functools.partial(fn, agg=self.agg, dtype=dtype)
-        else:
-            fn = (ops.dstd_spatial if self.mode == "spatial"
-                  else ops.dstd_temporal)
-            call = functools.partial(
-                fn, agg=self.agg, dtype=dtype,
-                pair_flat=self.pair_flat in (True, self.mode),
-                agg_group=self.agg_group)
+        call = functools.partial(
+            fn, agg=self.agg, dtype=dtype,
+            pair_flat=self.pair_flat in (True, self.mode),
+            agg_group=self.agg_group)
         if self.remat == "dots":
             call = jax.checkpoint(
                 call, policy=jax.checkpoint_policies.dots_saveable)
         elif self.remat:
             call = jax.checkpoint(call)
-        return call(*args)
+        return call(x, base_adj, alpha, p["wf"], p["bf"], p["wm1"], p["bm1"],
+                    p["wm2"], p["bm2"], p["wrm"], p["brm"], mask)
 
 
-class DSTDGCB(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DSTDGCB:
     """DSTD-GC block: spatial kernels + BN + residual + PReLU + temporal.
 
     Reference ``DSTDGCB`` (dstdgcn.py:97-163).  Static adjacency handling:
@@ -258,73 +243,78 @@ class DSTDGCB(nn.Module):
     layout: str = "h36m"
     fast: bool = False
     bn_axis_name: Optional[str] = None
-    #: False | True | 'spatial' | 'temporal' | 'serving' (see DSTDGC)
-    use_pallas: Union[bool, str] = False
     compute_dtype: Optional[str] = None
     pair_flat: Union[bool, str] = False
     agg_group_spatial: Optional[int] = None
     agg_group_temporal: Optional[int] = None
     remat: Union[bool, str] = False
 
-    @nn.compact
-    def __call__(self, x: Array, *, train: bool) -> Array:
+    def _parts(self):
         a_s = sk.stacked_adjacency(self.layout)            # (2, V, V)
         a_t = tg.stacked_adjacency(self.time_dim)          # (1, T, T)
-        assert a_s.shape[1] == self.joint_dim == x.shape[2]
-        assert x.shape[1] == self.time_dim
-        ks, kt = a_s.shape[0], a_t.shape[0]
-
-        if self.fast:
-            base_s = self.param("A_s", constant_init(a_s), a_s.shape)
-        else:
-            w_s = self.param("W_s", nn.initializers.zeros, a_s.shape,
-                             jnp.float32)
-            r_s = self.param("R_s", constant_init(a_s), a_s.shape)
-            base_s = jax.lax.stop_gradient(r_s) * w_s + r_s
-        r_t = self.param("R_t", nn.initializers.zeros, a_t.shape, jnp.float32)
-        base_t = jnp.asarray(a_t) + r_t
-
-        alpha_sm = self.param("alpha_sm", nn.initializers.zeros, (1,),
-                              jnp.float32)
-        alpha_tm = self.param("alpha_tm", nn.initializers.zeros, (1,),
-                              jnp.float32)
-
+        agg = "left" if self.fast else "right"
+        common = dict(out_channels=self.out_channels, agg=agg,
+                      compute_dtype=self.compute_dtype,
+                      pair_flat=self.pair_flat, remat=self.remat)
+        spatial = DSTDGC(ref_len=self.time_dim, num_kernels=a_s.shape[0],
+                         mode="spatial", agg_group=self.agg_group_spatial,
+                         **common)
+        temporal = DSTDGC(ref_len=self.joint_dim, num_kernels=a_t.shape[0],
+                          mode="temporal", agg_group=self.agg_group_temporal,
+                          **common)
         act_dtype = (jnp.float32 if self.compute_dtype is None
                      else jnp.dtype(self.compute_dtype))
-        cin, co = x.shape[-1], self.out_channels
+        bn = JointBatchNorm(axis_name=self.bn_axis_name, dtype=act_dtype)
+        return a_s, a_t, spatial, temporal, bn
+
+    def init(self, key: Array, cin: int) -> Tuple[Tree, Tree]:
+        a_s, a_t, spatial, temporal, bn = self._parts()
+        assert a_s.shape[1] == self.joint_dim, (a_s.shape, self.joint_dim)
+        co, v = self.out_channels, self.joint_dim
+        k_res, k_s, k_t = jax.random.split(key, 3)
+        a_s = jnp.asarray(a_s, jnp.float32)
+        params: Tree = ({"A_s": a_s} if self.fast else
+                        {"W_s": jnp.zeros(a_s.shape, jnp.float32),
+                         "R_s": a_s})
+        params["R_t"] = jnp.zeros(a_t.shape, jnp.float32)
+        params["alpha_sm"] = jnp.zeros((1,), jnp.float32)
+        params["alpha_tm"] = jnp.zeros((1,), jnp.float32)
+        stats: Tree = {}
         if cin != co:
-            res = nn.Dense(co, kernel_init=kaiming_out(co),
-                           name="residual_proj")(x)
-            res = JointBatchNorm(axis_name=self.bn_axis_name,
-                                 dtype=act_dtype,
-                                 name="residual_bn")(res, train=train)
+            params["residual_proj"] = _dense_init(k_res, cin, co)
+            params["residual_bn"], stats["residual_bn"] = bn.init(v, co)
+        params["spatial"] = spatial.init(k_s, cin)
+        params["bn"], stats["bn"] = bn.init(v, co)
+        params["prelu"] = PReLU().init()
+        params["temporal"] = temporal.init(k_t, co)
+        return params, stats
+
+    def apply(self, params: Tree, stats: Tree, x: Array, *,
+              train: bool) -> Tuple[Array, Tree]:
+        _, a_t, spatial, temporal, bn = self._parts()
+        assert x.shape[1] == self.time_dim and x.shape[2] == self.joint_dim
+        p, new = params, {}
+        if self.fast:
+            base_s = p["A_s"]
+        else:
+            base_s = jax.lax.stop_gradient(p["R_s"]) * p["W_s"] + p["R_s"]
+        base_t = jnp.asarray(a_t) + p["R_t"]
+
+        if "residual_proj" in p:
+            res = _dense(p["residual_proj"], x)
+            res, new["residual_bn"] = bn.apply(
+                p["residual_bn"], stats["residual_bn"], res, train=train)
         else:
             res = x
-
-        agg = "left" if self.fast else "right"
-        y = DSTDGC(out_channels=co, ref_len=self.time_dim, num_kernels=ks,
-                   mode="spatial", agg=agg, use_pallas=self.use_pallas,
-                   compute_dtype=self.compute_dtype,
-                   pair_flat=self.pair_flat,
-                   agg_group=self.agg_group_spatial,
-                   remat=self.remat,
-                   name="spatial")(x, base_s, alpha_sm, train=train)
-        y = JointBatchNorm(axis_name=self.bn_axis_name, dtype=act_dtype,
-                           name="bn")(y, train=train)
-        y = y + res
-        y = PReLU(name="prelu")(y)
-
-        z = DSTDGC(out_channels=co, ref_len=self.joint_dim, num_kernels=kt,
-                   mode="temporal", agg=agg, use_pallas=self.use_pallas,
-                   compute_dtype=self.compute_dtype,
-                   pair_flat=self.pair_flat,
-                   agg_group=self.agg_group_temporal,
-                   remat=self.remat,
-                   name="temporal")(y, base_t, alpha_tm, train=train)
-        return z
+        y = spatial.apply(p["spatial"], x, base_s, p["alpha_sm"])
+        y, new["bn"] = bn.apply(p["bn"], stats["bn"], y, train=train)
+        y = PReLU().apply(p["prelu"], y + res)
+        z = temporal.apply(p["temporal"], y, base_t, p["alpha_tm"])
+        return z, new
 
 
-class ConvTemporalGraphical(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvTemporalGraphical:
     """Legacy ST-GCN unit (reference dstdgcn.py:166-188).
 
     Dead in the shipped DSTD-GCN configs (all layers use refine=True) but
@@ -337,21 +327,23 @@ class ConvTemporalGraphical(nn.Module):
     joints_dim: int
     layout: str = "h36m"
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def init(self, key: Array) -> Tree:
         t, v = self.time_dim, self.joints_dim
-        a = self.param("A", uniform_pm(1.0 / np.sqrt(v)), (t, v, v))
-        tm = self.param("T", uniform_pm(1.0 / np.sqrt(t)), (v, t, t))
+        ka, kt = jax.random.split(key)
+        return {"A": uniform_pm(1.0 / np.sqrt(v))(ka, (t, v, v)),
+                "T": uniform_pm(1.0 / np.sqrt(t))(kt, (v, t, t))}
+
+    def apply(self, params: Tree, x: Array) -> Array:
         a_fixed = jnp.asarray(sk.adjacency(self.layout, "all"))[None]
         # reference: einsum('nctv,vtq->ncqv') then einsum('nctv,tvw->nctw')
-        y = jnp.einsum("ntvc,vtq->nqvc", x, tm,
+        y = jnp.einsum("ntvc,vtq->nqvc", x, params["T"],
                        preferred_element_type=jnp.float32)
-        y = jnp.einsum("ntvc,tvw->ntwc", y, a + a_fixed,
-                       preferred_element_type=jnp.float32)
-        return y
+        return jnp.einsum("ntvc,tvw->ntwc", y, params["A"] + a_fixed,
+                          preferred_element_type=jnp.float32)
 
 
-class STGCNNLayer(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class STGCNNLayer:
     """Refine-or-legacy spatiotemporal layer (reference dstdgcn.py:191-249)."""
 
     out_channels: int
@@ -364,46 +356,60 @@ class STGCNNLayer(nn.Module):
     layout: str = "h36m"
     fast: bool = False
     bn_axis_name: Optional[str] = None
-    #: False | True | 'spatial' | 'temporal' | 'serving' (see DSTDGC)
-    use_pallas: Union[bool, str] = False
     compute_dtype: Optional[str] = None
     pair_flat: Union[bool, str] = False
     agg_group_spatial: Optional[int] = None
     agg_group_temporal: Optional[int] = None
     remat: Union[bool, str] = False
 
-    @nn.compact
-    def __call__(self, x: Array, *, train: bool) -> Array:
-        cin, co = x.shape[-1], self.out_channels
+    def _block(self) -> DSTDGCB:
+        return DSTDGCB(out_channels=self.out_channels, time_dim=self.time_dim,
+                       joint_dim=self.joints_dim, layout=self.layout,
+                       fast=self.fast, bn_axis_name=self.bn_axis_name,
+                       compute_dtype=self.compute_dtype,
+                       pair_flat=self.pair_flat,
+                       agg_group_spatial=self.agg_group_spatial,
+                       agg_group_temporal=self.agg_group_temporal,
+                       remat=self.remat)
+
+    def _tgcn(self) -> ConvTemporalGraphical:
+        return ConvTemporalGraphical(self.time_dim, self.joints_dim,
+                                     self.layout)
+
+    def init(self, key: Array, cin: int) -> Tuple[Tree, Tree]:
+        co = self.out_channels
+        k_res, k_body, k_conv = jax.random.split(key, 3)
+        params: Tree = {}
+        stats: Tree = {}
+        if self.residual and (self.stride != 1 or cin != co):
+            params["residual_proj"] = _dense_init(k_res, cin, co)
+        if self.refine:
+            params["block"], stats["block"] = self._block().init(k_body, cin)
+        else:
+            kh, kw = self.kernel_size
+            params["tgcn"] = self._tgcn().init(k_body)
+            params["conv"] = {
+                "kernel": kaiming_out(co * kh * kw)(
+                    k_conv, (kh, kw, cin, co), jnp.float32),
+                "bias": jnp.zeros((co,), jnp.float32)}
+        return params, stats
+
+    def apply(self, params: Tree, stats: Tree, x: Array, *,
+              train: bool) -> Tuple[Array, Tree]:
+        new: Tree = {}
         res = None
         if self.residual:
-            if self.stride != 1 or cin != co:
-                res = nn.Dense(co, kernel_init=kaiming_out(co),
-                               name="residual_proj")(x)
-            else:
-                res = x
-
+            res = (_dense(params["residual_proj"], x)
+                   if "residual_proj" in params else x)
         if self.refine:
-            y = DSTDGCB(out_channels=co, time_dim=self.time_dim,
-                        joint_dim=self.joints_dim, layout=self.layout,
-                        fast=self.fast, bn_axis_name=self.bn_axis_name,
-                        use_pallas=self.use_pallas,
-                        compute_dtype=self.compute_dtype,
-                        pair_flat=self.pair_flat,
-                        agg_group_spatial=self.agg_group_spatial,
-                        agg_group_temporal=self.agg_group_temporal,
-                        remat=self.remat,
-                        name="block")(
-                            x, train=train)
+            y, new["block"] = self._block().apply(
+                params["block"], stats["block"], x, train=train)
         else:
-            y = ConvTemporalGraphical(self.time_dim, self.joints_dim,
-                                      self.layout, name="tgcn")(x)
-            kh, kw = self.kernel_size
-            y = nn.Conv(co, kernel_size=(kh, kw),
-                        strides=(self.stride, self.stride), padding="SAME",
-                        kernel_init=kaiming_out(co * kh * kw),
-                        name="conv")(y)
-
+            y = self._tgcn().apply(params["tgcn"], x)
+            y = jax.lax.conv_general_dilated(
+                y, params["conv"]["kernel"], (self.stride, self.stride),
+                "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+            y = y + params["conv"]["bias"]
         if res is not None:
             y = y + res
-        return y
+        return y, new

@@ -3,17 +3,17 @@
 These are the semantic ground truth for the framework's compute path — pure
 functions over channels-last ``(N, T, V, C)`` features.  The math matches the
 reference PyTorch unit (``/root/reference/model/dstdgcn.py:53-94``) but is
-re-expressed TPU-first:
+re-expressed for XLA:
 
-  * channels-last layout keeps C on the minor (lane) dimension;
+  * channels-last layout keeps C on the minor dimension;
   * the per-kernel Python loop of the reference block becomes a stacked
     kernel axis inside one contraction;
   * the pairwise-difference "constrained correlation" (an SDDMM-style
-    all-pairs score) and the frame/joint mixing are fused into einsums XLA
-    maps onto the MXU.
+    all-pairs score) and the frame/joint mixing are einsums XLA lowers to
+    batched matrix products.
 
-The optional Pallas kernels in :mod:`dstdgcn_tpu.kernels` implement the same
-contracts and are golden-tested against these functions.
+They are also the plain reference any hand-written kernel is tested
+against.
 
 Shape glossary
 --------------
@@ -71,10 +71,10 @@ def _cast_dot(x: jnp.ndarray, dtype) -> jnp.ndarray:
 
 def _project(x: jnp.ndarray, w: jnp.ndarray, b: jnp.ndarray,
              dtype=None) -> jnp.ndarray:
-    """(N,T,V,Ci) x (K,Ci,Co) -> (K,N,T,V,Co); one MXU matmul per kernel.
+    """(N,T,V,Ci) x (K,Ci,Co) -> (K,N,T,V,Co); one matmul per kernel.
 
     ``dtype`` (e.g. bfloat16) casts the matmul INPUTS only — accumulation
-    stays float32 via preferred_element_type (MXU-native mixed precision)."""
+    stays float32 via preferred_element_type (mixed precision)."""
     y = jnp.einsum("ntvc,kcd->kntvd", _cast(x, dtype), _cast(w, dtype),
                    preferred_element_type=jnp.float32)
     return y + b[:, None, None, None, :]
@@ -86,8 +86,8 @@ def sddmm_pairwise_tanh(q: jnp.ndarray, k: jnp.ndarray,
 
     q, k: (..., P, R) over P nodes -> (..., R, P, P) scores.  The optional
     0/1 ``mask`` (P, P) restricts score computation to permitted pairs — the
-    general "constrained SDDMM" surface (dense fallback; the Pallas kernel
-    tiles the P x P grid and skips fully-masked blocks).
+    general "constrained SDDMM" surface, in dense form (a block-sparse
+    kernel that skips fully-masked blocks is ROADMAP W2).
     """
     d = q[..., :, None, :] - k[..., None, :, :]       # (..., P, P, R)
     s = jnp.tanh(d)
@@ -105,11 +105,9 @@ def dyn_adjacency_spatial(x: jnp.ndarray, wm1, bm1, wm2, bm2, wrm, brm,
     channels, all-pairs tanh difference over joints, then mix the (R, T)
     score channels into each output frame with ``wrm``.
 
-    TPU layout note: the projections are emitted as (K, N, R*T, V) with
-    joints on the minor (lane) dim.  The natural (..., V, R) layout pads
-    R=2 to a 128-lane tile — a 64x HBM traffic inflation that dominates
-    the whole op (measured in scripts/archive/profile_components.py); V-minor
-    reduces the padding to ceil(V/128).
+    The projections are emitted as (K, N, R*T, V) with joints on the minor
+    dim, so the pairwise broadcast runs over contiguous joints instead of
+    over an R=2 minor dim.
     """
     kk, rr = wm1.shape[0], wm1.shape[-1]
     # one matmul for q AND k (wm1|wm2 concatenated on the R axis): halves
@@ -212,14 +210,14 @@ def _block_diag_batch(adj: jnp.ndarray, g: int) -> jnp.ndarray:
     """(..., B, P, P) per-item adjacencies -> (..., B/g, g*P, g*P) batched
     block-diagonal matrices.
 
-    MXU utilization trick: a batched matmul with tiny M/K (P=22..40 joints
-    or frames) reloads the MXU weight plane per batch item at ~12-18%
-    density; packing ``g`` consecutive items into one block-diagonal matrix
-    makes each weight load g*P wide (~128, a full MXU tile), cutting the
-    number of issued matmuls by g at the cost of g x adjacency bytes (zeros
-    the compiler streams but never reads from HBM twice).  Semantics are
-    exactly the per-item batched contraction (golden-tested vs
-    :func:`aggregate_spatial` / :func:`aggregate_temporal`).
+    A batched matmul with tiny M/K (P=22..40 joints or frames) issues one
+    small product per batch item; packing ``g`` consecutive items into one
+    block-diagonal matrix makes each product g*P wide, cutting the number
+    of products by g at the cost of g x the adjacency bytes and FLOPs
+    (multiplications by zero).  Semantics are exactly the per-item batched
+    contraction (golden-tested vs :func:`aggregate_spatial` /
+    :func:`aggregate_temporal`); whether it pays is measured per shape by
+    ``bench.py --autotune``.
     """
     *lead, b, p, p2 = adj.shape
     assert p == p2 and b % g == 0, (adj.shape, g)
@@ -230,24 +228,13 @@ def _block_diag_batch(adj: jnp.ndarray, g: int) -> jnp.ndarray:
 
 
 def _grouped_custom_vjp_enabled() -> bool:
-    """Hand-derived backward for the grouped aggregations — measured
-    SLOWER, default OFF (round-5 experiment, kept for the record).
+    """Hand-derived backward for the grouped aggregations, off by default.
 
-    Hypothesis: XLA's autodiff of the block-diagonal formulation
-    computes the FULL (g*P, g*P) cotangent and masks it back to the
-    diagonal blocks (the VJP of ``_block_diag_batch``'s eye-broadcast)
-    — ~g x wasted matmul FLOPs plus a large materialized tensor — so a
-    custom VJP computing ``dadj`` per item (C-contraction, no
-    block-diagonal) should win.
-
-    Measurement (PROBES_r05b, interleaved ON/OFF pairs, b128 tuned
-    knobs): custom VJP 42.2 / 41.6 ms vs autodiff 37.3 / 38.0 ms — the
-    hypothesis is WRONG on this shape.  The full (g*V, g*V) cotangent
-    GEMM is a well-shaped 110x110x64 matmul XLA fuses the masking into,
-    while the per-item dadj einsum is a 22x22x64 batched GEMM — the
-    exact MXU-underfill the grouping exists to avoid, now in the
-    backward.  DSTDGCN_GROUPED_AGG_VJP=1 opts in (gradients stay
-    golden-tested, tests/test_grouped_vjp.py); default is autodiff.
+    It computes ``dadj`` per item (a C-contraction) instead of autodiff's
+    full (g*P, g*P) block-diagonal cotangent masked back to the diagonal
+    blocks.  ``DSTDGCN_GROUPED_AGG_VJP=1`` opts in; gradients are
+    golden-tested (tests/test_grouped_vjp.py).  Its speed on the H100 is
+    not measured.
     """
     import os
     return os.environ.get("DSTDGCN_GROUPED_AGG_VJP", "0") == "1"
@@ -311,7 +298,7 @@ def aggregate_spatial_grouped(xf: jnp.ndarray, adj: jnp.ndarray, g: int,
 
     xf (K,N,T,V,C), adj (K,N,T,V,V) -> (N,T,V,C); ``g`` frames are packed
     per matmul, turning the per-(n,t) V x V aggregation into (g*V) x (g*V)
-    block-diagonal matmuls that fill the MXU.  T is zero-padded up to a
+    block-diagonal matmuls.  T is zero-padded up to a
     multiple of ``g`` (zero adjacency blocks over zero features contribute
     nothing; the padded frames are sliced off) — so ``g`` need not divide
     T, e.g. g=4 on T=35.
@@ -406,21 +393,10 @@ def _dyn_adjacency_flat(x, wm1, bm1, wm2, bm2, wrm, brm, mask, dtype,
     ``pair="tt"`` (temporal): scores over frame pairs per source joint,
     mixed into output joints -> (K, N, V, T*T).
 
-    Rationale (TPU layout): the grid formulations materialize the score
-    tensor and dyn with a tiny minor dim (V=22 or T=35), which XLA:TPU
-    tiles to (8,128) — a 3.7-5.8x HBM inflation that dominates the op
-    (scripts/archive/profile_components.py).  Keeping the pair dim FLAT (V*V=484
-    or T*T=1225 on lanes) makes every big intermediate ~fully packed; only
-    the final adjacency reshape before aggregation pays the padded layout,
-    once.  Semantics identical to the grid functions (golden-tested).
-
-    Measured on a v5e (scripts/archive/probe_flat.py, 7-block chain, N=128):
-    grid f32 7.63 ms / flat f32 8.20 ms / flat bf16 7.20 ms — i.e. the
-    chain is NOT bound by the padded score traffic (XLA overlaps it); the
-    dominant cost is the per-(sample,frame) batched tiny-GEMM aggregation,
-    which XLA already packs near the MXU weight-load floor.  The flat
-    layout is kept as a config choice because it wins in bf16 and on
-    larger graphs (pair dims closer to lane multiples).
+    The pair dim stays flat (V*V or T*T minor) through the score and
+    mixing stages; only the final adjacency is reshaped to the pair grid
+    before aggregation.  Semantics identical to the grid functions
+    (golden-tested); its speed on the H100 is not measured.
     """
     kk, rr = wm1.shape[0], wm1.shape[-1]
     nn, tt, vv = x.shape[0], x.shape[1], x.shape[2]
@@ -438,7 +414,7 @@ def _dyn_adjacency_flat(x, wm1, bm1, wm2, bm2, wrm, brm, mask, dtype,
     s = jnp.tanh(q[..., :, None] - k[..., None, :])    # (K,N,S,P,P)
     if mask is not None:
         s = s * mask
-    s = s.reshape(kk, nn, ss, p * p)                   # flat pair lanes
+    s = s.reshape(kk, nn, ss, p * p)                   # flat pair dim
     wrm2 = wrm.reshape(kk, ss, wrm.shape[-1])
     dyn = jnp.einsum(out_eq, _cast_dot(s, dtype), _cast_dot(wrm2, dtype),
                      preferred_element_type=jnp.float32)
@@ -455,10 +431,10 @@ def dstd_spatial(x: jnp.ndarray, base_adj: jnp.ndarray, alpha: jnp.ndarray,
 
     x (N,T,V,Ci), base_adj (K,V,V) static part -> (N,T,V,Co).
     effective adjacency = dyn * alpha + base (dstdgcn.py:86).
-    ``dtype=jnp.bfloat16`` runs the contractions in MXU-native mixed
-    precision (bf16 inputs, f32 accumulation); params/outputs stay f32.
+    ``dtype=jnp.bfloat16`` runs the contractions in mixed precision
+    (bf16 inputs, f32 accumulation); params/outputs stay f32.
     ``pair_flat=True`` computes scores/dyn/adjacency-assembly in the flat
-    (V*V)-lane layout (see _dyn_adjacency_flat) and reshapes to the pair
+    (V*V)-flat layout (see _dyn_adjacency_flat) and reshapes to the pair
     grid only at the aggregation boundary.
     ``agg_group=g`` aggregates via frame-grouped block-diagonal matmuls
     (see :func:`aggregate_spatial_grouped`; T is padded to a multiple of g).
@@ -498,7 +474,7 @@ def dstd_temporal(x: jnp.ndarray, base_adj: jnp.ndarray, alpha: jnp.ndarray,
     """Full temporal DSTD-GC over K stacked kernels.
 
     x (N,T,V,Ci), base_adj (K,T,T) static part -> (N,T,V,Co).
-    ``pair_flat`` as in :func:`dstd_spatial`, with (T*T)-flat pair lanes.
+    ``pair_flat`` as in :func:`dstd_spatial`, with a (T*T)-flat pair dim.
     ``agg_group=g`` aggregates via joint-grouped block-diagonal matmuls
     (see :func:`aggregate_temporal_grouped`).
     """

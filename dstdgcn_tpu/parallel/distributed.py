@@ -2,13 +2,19 @@
 
 The reference is strictly single-process (SURVEY.md §2.6: no NCCL/Gloo/MPI
 anywhere; ``utils/logger.py:15-19`` carries an always-0 rank).  This module
-creates the launch layer the TPU framework needs (SURVEY §7 step 8): each
-host process calls :func:`initialize` before touching devices, after which
-``jax.devices()`` is the *global* device set, meshes built by
-``parallel.mesh.make_mesh`` span all hosts, and XLA lowers collectives onto
-ICI/DCN.  Input pipelines use :func:`process_info` to read their per-process
-shard (``data.loader.Loader(process_index, process_count)``), and batches are
+is the launch layer for runs that span hosts: each host process calls
+:func:`initialize` before touching devices, after which ``jax.devices()``
+is the *global* device set, meshes built by ``parallel.mesh.make_mesh``
+span all hosts, and XLA lowers collectives onto NCCL (NVLink inside a
+host, the network between hosts).  Input pipelines use
+:func:`process_info` to read their per-process shard
+(``data.loader.Loader(process_index, process_count)``), and batches are
 assembled into global arrays with :func:`make_global_batch`.
+
+One process drives every GPU of its host, so a single-host run on four
+cards needs no distributed initialization at all: omit the
+``distributed`` block and the env vars, and ``parallel: {data, graph}``
+meshes the local devices.
 
 Launch (one process per host), e.g.::
 
@@ -19,13 +25,13 @@ or via the config block::
 
     parallel:
       distributed:
-        coordinator: host0:1234    # or "auto" on TPU pods
+        coordinator: host0:1234
         num_processes: 2
         process_id: 0              # usually from the env instead
 
-On TPU pod slices every field may be omitted (``coordinator: auto``):
-``jax.distributed.initialize()`` discovers the topology from the TPU
-runtime metadata.
+Nothing on a GPU cluster tells JAX the topology, so ``coordinator``,
+``num_processes`` and ``process_id`` must all be given; a block without
+them is an error.
 """
 
 from __future__ import annotations
@@ -53,14 +59,9 @@ def initialize(dist_cfg: Optional[Dict[str, Any]] = None,
     ``DSTDGCN_NUM_PROCESSES`` / ``DSTDGCN_PROCESS_ID`` env vars FIRST
     (one launch command per host with per-process env, as the config
     files document: "env vars override per process"), then the config
-    block, then JAX auto-detection (TPU pod metadata).  A missing config
-    block AND missing env vars means single-process mode: no-op,
-    returns (0, 1).
-
-    (Round-5 fix: config-first resolution let a shipped
-    ``coordinator: auto`` shadow the env coordinator, so the documented
-    multi-host launch recipe crashed with "coordinator_address should
-    be defined" — found by actually running main.py two-process.)
+    block.  A missing config block AND missing env vars means
+    single-process mode: no-op, returns (0, 1).  A launch that names
+    some fields but not all three raises ``ValueError``.
 
     Returns ``(process_index, process_count)``.
     """
@@ -77,27 +78,16 @@ def initialize(dist_cfg: Optional[Dict[str, Any]] = None,
     if not cfg and coord is None and nproc is None:
         return 0, 1                       # single-process launch
     if not _INITIALIZED:
-        kwargs: Dict[str, Any] = {}
-        if coord not in (None, "auto"):
-            kwargs["coordinator_address"] = coord
-        if nproc is not None:
-            kwargs["num_processes"] = nproc
-        if pid is not None:
-            kwargs["process_id"] = pid
-        if kwargs:
-            jax.distributed.initialize(**kwargs)
-            _INITIALIZED = True
-        else:
-            # `coordinator: auto` with nothing else: rely on TPU-pod
-            # topology auto-discovery; off-pod (CPU/dev runs of a multihost
-            # config) this raises quickly — fall back to single-process
-            try:
-                jax.distributed.initialize()
-                _INITIALIZED = True
-            except (RuntimeError, ValueError) as e:
-                if logger is not None:
-                    logger.info(f"single-process fallback ({e})")
-                return 0, 1
+        if coord in (None, "auto") or nproc is None or pid is None:
+            raise ValueError(
+                "parallel.distributed needs coordinator (host:port), "
+                "num_processes and process_id (config or DSTDGCN_* env); "
+                f"got coordinator={coord!r}, num_processes={nproc!r}, "
+                f"process_id={pid!r}.  A single host needs no distributed "
+                "block: one process drives all its devices")
+        jax.distributed.initialize(coordinator_address=coord,
+                                   num_processes=nproc, process_id=pid)
+        _INITIALIZED = True
     info = process_info()
     if logger is not None:
         logger.info(

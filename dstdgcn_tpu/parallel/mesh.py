@@ -1,19 +1,19 @@
 """Device mesh construction and sharding rules.
 
-The framework's parallelism model (SURVEY.md §2.6, BASELINE.json north
-star), built the TPU way — ``jax.sharding`` + GSPMD instead of the NCCL/DDP
-machinery the reference lacks anyway:
+The framework's parallelism model (SURVEY.md §2.6), built on
+``jax.sharding`` + GSPMD rather than hand-written DDP machinery (the
+reference has none anyway); XLA:GPU lowers the collectives to NCCL:
 
   * ``data`` axis: batch (data parallel) — batches sharded on axis 0,
-    parameters replicated, gradients all-reduced by XLA over ICI;
+    parameters replicated, gradients all-reduced by XLA;
   * ``graph`` axis: spatiotemporal-graph partition — the joint (V) axis of
     activations is sharded, so per-frame joint aggregation becomes local
     partial contractions + an XLA-inserted reduce-scatter/all-gather pair
-    (the "edge partitioning with all-to-all" of the north star; see
-    parallel/shard.py for the explicit shard_map formulation);
+    (edge partitioning; see parallel/shard.py for the explicit shard_map
+    formulation);
   * ``model`` axis (optional, SURVEY §2.6 "TP"): feature channels — the
     output dim of every projection weight and the channel dim of
-    activations are sharded, so each chip holds a column slice of the
+    activations are sharded, so each device holds a column slice of the
     dense kernels and XLA inserts the all-reduce on the row-parallel
     contractions.  C=64 is small, so this is off unless
     ``parallel: {model: k}`` asks for it.

@@ -5,9 +5,9 @@ the spatiotemporal graph's joint axis is partitioned across the ``graph``
 mesh axis, and the two communication points are explicit:
 
   * spatial kernel: the correlation *keys* (a tiny ``(K, N, T, V, R=2)``
-    tensor) are all-gathered over ICI, every shard computes the pairwise
-    scores / dynamic adjacency / aggregation for its local source joints
-    against all destination joints, and the result is combined with a
+    tensor) are all-gathered (NCCL over NVLink), every shard computes the
+    pairwise scores / dynamic adjacency / aggregation for its local source
+    joints against all destination joints, and the result is combined with a
     ``psum_scatter`` over destination joints — a reduce-scatter that
     overlaps with the next kernel's compute under XLA's scheduler;
   * temporal kernel: scores are joint-local; only the joint-mixing of the
@@ -23,9 +23,11 @@ north-star "edge-partitioned, all-to-all overlapped" config,
 BASELINE.json): instead of one upfront ``all_gather`` + one bulk compute,
 the (query, feature) chunks rotate around the ``graph`` ring with
 ``ppermute`` while each round's partial scores/aggregation are computed —
-every round's send is independent of that round's math, so XLA's async
-collectives (`--xla_tpu_enable_async_collective_permute`) hide the ICI
-transfer behind the MXU work.  Per-pair semantics are identical to
+every round's send is independent of that round's math, so XLA:GPU's
+asynchronous collectives (``collective-permute-start``/``-done`` over
+NCCL) can hide the NVLink transfer behind the matmuls;
+``hlo_check.check_overlap`` reads the compiled schedule to confirm it.
+Per-pair semantics are identical to
 :func:`dstd_spatial_edge_partitioned` (each (source, destination) joint
 pair is visited exactly once across rounds).
 """
@@ -111,7 +113,7 @@ def dstd_spatial_ring(mesh: Mesh, x, base_adj, alpha,
     and accumulates its output over ``nshard`` rounds.  Round ``r`` computes
     the (source-chunk ``(i - r) mod n``, local destinations) partial while
     ``ppermute`` forwards the (q, xf) chunk to the next shard — the
-    communication of round ``r+1`` rides ICI underneath round ``r``'s
+    communication of round ``r+1`` rides NVLink underneath round ``r``'s
     score/mixing/aggregation matmuls.  Matches
     :func:`dstd_spatial_edge_partitioned` bit-for-math (same contractions,
     chunked); golden-tested against ops.dstd on the CPU mesh.

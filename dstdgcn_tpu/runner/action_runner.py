@@ -14,10 +14,9 @@ import os
 from typing import Dict, List
 
 import numpy as np
-import pandas as pd
 
 from ..data import Loader, define_actions, get_dataset
-from .base import BaseRunner
+from .base import BaseRunner, write_csv
 
 _HORIZON_HEADS_LONG = ["3d80", "3d160", "3d320", "3d400", "3d560", "3d720",
                        "3d880", "3d1000"]
@@ -162,9 +161,8 @@ class ActionRunner(BaseRunner):
             test_acts, test_loaders, ds.time_tsfm, ds.scale_tsfm,
             save_prefix)
         self.logger.info("Loss: {:.5f}".format(err_avg))
-        df = pd.DataFrame(np.expand_dims(ret_test, axis=0))
         out = os.path.join(cfg["save"]["path"]["base"], "testing_loss.csv")
-        df.to_csv(out, header=head_test, index=False)
+        write_csv(out, [ret_test], head_test)
         self.logger.info("Save result to " + out)
 
     def run_test_all(self):
@@ -214,20 +212,14 @@ class ActionRunner(BaseRunner):
             rows.append([act, a_avg] + list(a_all))
         rows.append(["average", accum_avg / total] +
                     list(accum_all / total))
-        df = pd.DataFrame(rows)
         out = os.path.join(cfg["save"]["path"]["base"], "testing_loss.csv")
-        df.to_csv(out, header=head, index=False)
+        write_csv(out, rows, head)
         self.logger.info("Loss: {:.5f}".format(accum_avg / total))
         self.logger.info("Save result to " + out)
 
     def _append_csv(self, filename, row, head, first):
         out = os.path.join(self.config["save"]["path"]["base"], filename)
-        df = pd.DataFrame(np.expand_dims(row, axis=0))
-        if first:
-            df.to_csv(out, header=head, index=False)
-        else:
-            with open(out, "a") as f:
-                df.to_csv(f, header=False, index=False)
+        write_csv(out, [row], head if first else None, append=not first)
 
 
 class H36MRunner(ActionRunner):

@@ -9,10 +9,12 @@ directory.
 
 from __future__ import annotations
 
+import csv
+import math
 import os
 import random
 import shutil
-from typing import Any, Dict, Optional
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -25,6 +27,27 @@ from ..models import get_model
 def setup_seed(seed: int) -> None:
     np.random.seed(seed)
     random.seed(seed)
+
+
+def _csv_cell(v) -> str:
+    """Cell text as the metric CSVs have always had it: the shortest
+    round-trip repr of a float, an empty cell for NaN."""
+    if isinstance(v, (float, np.floating)):
+        return "" if math.isnan(v) else repr(float(v))
+    if isinstance(v, np.integer):
+        return str(int(v))
+    return str(v)
+
+
+def write_csv(path: str, rows: Iterable[Sequence],
+              header: Optional[Sequence[str]] = None,
+              append: bool = False) -> None:
+    """Write (or append) metric rows, optionally under a header line."""
+    with open(path, "a" if append else "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        if header is not None:
+            w.writerow(header)
+        w.writerows([_csv_cell(v) for v in row] for row in rows)
 
 
 class BaseRunner:
@@ -69,8 +92,9 @@ class BaseRunner:
 
     def _build_mesh(self):
         """Build the (data, graph) device mesh from the optional ``parallel``
-        config block: ``parallel: {data: auto|int, graph: int}``.  Absent
-        block (or a single device) -> single-device semantics (mesh=None)."""
+        config block: ``parallel: {data: auto|int, graph: int}``.  An
+        absent block means single-device semantics (mesh=None); a block
+        that asks for more devices than are present is an error."""
         par = self.config.get("parallel")
         if not par:
             return None, None
@@ -82,13 +106,13 @@ class BaseRunner:
         data = par.get("data", "auto")
         data = None if data in ("auto", None, "None") else int(data)
         n_dev = len(jax.devices())
-        if data is None and n_dev % (graph * model) != 0:
-            graph = model = 1
-        if (data or (n_dev // (graph * model))) * graph * model > n_dev:
-            self.logger.warning(
-                f"parallel config requests {data}x{graph}x{model} devices, "
-                f"have {n_dev}; falling back to single-device")
-            return None, None
+        want = (data or n_dev // (graph * model)) * graph * model
+        if want == 0 or want > n_dev or (
+                data is None and n_dev % (graph * model) != 0):
+            raise ValueError(
+                f"parallel config asks for data={par.get('data', 'auto')} x "
+                f"graph={graph} x model={model} devices but {n_dev} "
+                f"{jax.devices()[0].platform} device(s) are present")
         mesh = make_mesh(data=data, graph=graph, model=model)
         self.logger.info(f"device mesh: {dict(mesh.shape)}")
         return mesh, batch_sharding(mesh)

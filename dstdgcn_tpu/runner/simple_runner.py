@@ -11,16 +11,14 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pandas as pd
 
 from ..data import Loader, get_dataset
-from .base import BaseRunner
+from .base import BaseRunner, write_csv
 
 
 class SimpleRunner(BaseRunner):
 
     def _heads(self):
-        n = len(self.config["setting"]["eval_frame"])
         frames = self.config["setting"]["eval_frame"]
         return ["test_loss"] + [f"3d{(f + 1) * 40}" for f in frames]
 
@@ -70,12 +68,9 @@ class SimpleRunner(BaseRunner):
             head = (["epoch", "lr", "train_loss"] + self._heads())
             out = os.path.join(cfg["save"]["path"]["base"],
                                "training_loss.csv")
-            df = pd.DataFrame(np.expand_dims(ret_log, axis=0))
-            if epoch == start_epoch:
-                df.to_csv(out, header=head, index=False)
-            else:
-                with open(out, "a") as f:
-                    df.to_csv(f, header=False, index=False)
+            first = epoch == start_epoch
+            write_csv(out, [ret_log], head if first else None,
+                      append=not first)
 
             is_best = (not np.isnan(err_avg)) and err_avg < err_best
             if not np.isnan(err_avg):
@@ -91,9 +86,7 @@ class SimpleRunner(BaseRunner):
         if ret_log_best is not None:
             out = os.path.join(cfg["save"]["path"]["base"],
                                "training_loss.csv")
-            with open(out, "a") as f:
-                pd.DataFrame(np.expand_dims(ret_log_best, axis=0)).to_csv(
-                    f, header=False, index=False)
+            write_csv(out, [ret_log_best], append=True)
 
     def run_test(self):
         self.logger.info("Start testing")
@@ -114,8 +107,7 @@ class SimpleRunner(BaseRunner):
         ret = np.concatenate([[err_avg], err_all])
         self.logger.info("Loss: {:.5f}".format(err_avg))
         out = os.path.join(cfg["save"]["path"]["base"], "testing_loss.csv")
-        pd.DataFrame(np.expand_dims(ret, axis=0)).to_csv(
-            out, header=self._heads(), index=False)
+        write_csv(out, [ret], self._heads())
         self.logger.info("Save result to " + out)
 
     def run_test_all(self):

@@ -121,14 +121,10 @@ class CallbackLogger:
         averages = {k: v / max(self._metric_count, 1)
                     for k, v in self._metrics.items()}
         if averages:
-            try:
-                import yaml
-                with open(os.path.join(self.log_dir,
-                                       f"{self.name}_metrics.yaml"),
-                          "w") as f:
-                    yaml.safe_dump({self.epoch: averages}, f)
-            except ImportError:
-                pass
+            from .config import dump_yaml
+            with open(os.path.join(self.log_dir,
+                                   f"{self.name}_metrics.yaml"), "w") as f:
+                f.write(dump_yaml({self.epoch: averages}))
         self._metrics = defaultdict(float)
         self._metric_count = 0
         self.iteration = 0

@@ -1,11 +1,11 @@
-"""Reference-checkpoint migration: torch DSTD-GCN state_dict -> flax params.
+"""Reference-checkpoint migration: torch DSTD-GCN state_dict -> our params.
 
 Lets users of the reference PyTorch implementation
 (``/root/reference/model/dstdgcn.py``) load their trained checkpoints into
 this framework.  Operates on ``{name: np.ndarray}`` dicts so torch is only
 needed to *read* a ``.pth`` file (see :func:`load_torch_state_dict`).
 
-Name mapping (torch -> flax):
+Name mapping (torch -> our parameter tree):
   conv_st_in.stgcn.0.0         -> conv_st_in/block        (DSTDGCB)
   encoders.{i}.0.stgcn.0.0     -> encoder_{i}/block
   encoders.{i}.1 / .2          -> encoder_bn_{i} / encoder_prelu_{i}
@@ -24,7 +24,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-__all__ = ["torch_state_to_flax", "load_torch_state_dict"]
+__all__ = ["torch_state_to_params", "load_torch_state_dict"]
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
@@ -35,7 +35,11 @@ def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     reference engine (engine/prediction.py:171-182); the wrapper prefix
     ``model.`` added by the reference ModelWrapper is stripped.
     """
-    import torch  # local import: torch is optional for this framework
+    try:
+        import torch  # optional: only checkpoint migration needs it
+    except ImportError as e:
+        raise ImportError("reading a reference .pth checkpoint needs "
+                          f"torch, which is not installed ({e})") from e
 
     state = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(state, dict) and "model" in state and not hasattr(
@@ -140,9 +144,9 @@ def _block(sd: Dict[str, np.ndarray], tprefix: str, joints: int,
     return params, stats
 
 
-def torch_state_to_flax(sd: Dict[str, np.ndarray], num_layers: int,
-                        joints: int, fast: bool = False) -> Dict[str, Any]:
-    """Build flax ``{'params': ..., 'batch_stats': ...}`` from a reference
+def torch_state_to_params(sd: Dict[str, np.ndarray], num_layers: int,
+                          joints: int, fast: bool = False) -> Dict[str, Any]:
+    """Build ``{"params": ..., "batch_stats": ...}`` from a reference
     state_dict (numpy arrays)."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}

@@ -1,12 +1,11 @@
 """Device-time measurement helpers shared by bench.py and scripts/.
 
-The core rule (learned the hard way, see BENCH_r01 history): to time an op
-without host-dispatch overhead, iterate it inside ONE jitted ``fori_loop``
-with the op's OUTPUT carried directly.  A carry like ``acc + 0.0 * op(acc)``
-is NOT safe — XLA algebraically folds the multiply and deletes the op
-entirely (observed on TPU; scripts/bench_scaling.py shipped that bug in
-round 1).  ``loop_fn`` below carries the output, so the op cannot be
-eliminated; ``tests/test_utils.py`` pins this semantics.
+The core rule: to time an op without host-dispatch overhead, iterate it
+inside ONE jitted ``fori_loop`` with the op's OUTPUT carried directly.  A
+carry like ``acc + 0.0 * op(acc)`` is NOT safe — XLA algebraically folds
+the multiply and deletes the op entirely (scripts/bench_scaling.py once
+shipped that bug).  ``loop_fn`` below carries the output, so the op
+cannot be eliminated; ``tests/test_utils.py`` pins this semantics.
 """
 
 from __future__ import annotations

@@ -45,6 +45,22 @@ BONES = {
 }
 
 
+def _plotting():
+    """(imageio.v2, matplotlib.pyplot) for the visualize modes; a clear
+    error when either package is missing (they are not needed anywhere
+    else)."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import imageio.v2 as imageio
+        import matplotlib.pyplot as plt
+    except ImportError as e:
+        raise ImportError(
+            "the visualize modes need matplotlib and imageio, which are "
+            f"not installed ({e})") from e
+    return imageio, plt
+
+
 class Visualizer:
     """Render flat (T, V*3) sequences into frame PNGs, a GIF and a strip."""
 
@@ -77,13 +93,7 @@ class Visualizer:
 
         Input frames black, predicted frames blue (reference
         utils/visualization.py:73-146)."""
-        try:
-            import matplotlib
-            matplotlib.use("Agg")
-            import imageio.v2 as imageio
-            import matplotlib.pyplot as plt
-        except ImportError:
-            return None
+        imageio, plt = _plotting()
         os.makedirs(save_dir, exist_ok=True)
         t = seq.shape[0]
         frames = []
@@ -106,13 +116,7 @@ class Visualizer:
                    title: str) -> Optional[str]:
         """Prediction (blue) vs ground truth (red) overlay GIF (reference
         utils/visualization.py:148-233)."""
-        try:
-            import matplotlib
-            matplotlib.use("Agg")
-            import imageio.v2 as imageio
-            import matplotlib.pyplot as plt
-        except ImportError:
-            return None
+        imageio, plt = _plotting()
         os.makedirs(save_dir, exist_ok=True)
         frames = []
         for i in range(pred.shape[0]):
@@ -139,17 +143,11 @@ def plot_expmap_multi(expmap_gt: np.ndarray, expmap_pred: np.ndarray,
     draws GT in greys (dashed) and the prediction in the reference's
     purple/green left/right colours over the 16-bone subset, with
     root-centred fixed-radius limits; frames are written to a GIF instead
-    of plt.pause animation (TPU hosts are headless).
+    of plt.pause animation (training hosts are headless).
 
     ``expmap_gt`` / ``expmap_pred``: (T, 99) H36M expmap channel vectors.
     """
-    try:
-        import matplotlib
-        matplotlib.use("Agg")
-        import imageio.v2 as imageio
-        import matplotlib.pyplot as plt
-    except ImportError:
-        return None
+    imageio, plt = _plotting()
     from ..data.kinematics import expmap_to_xyz
 
     xyz_gt = expmap_to_xyz(np.asarray(expmap_gt, np.float32))

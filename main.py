@@ -10,23 +10,26 @@ import os
 import os.path as path
 
 from dstdgcn_tpu.runner import get_runner
+from dstdgcn_tpu.utils.compile_cache import enable_compile_cache
 from dstdgcn_tpu.utils.config import get_config, save_config
 from dstdgcn_tpu.utils.logging import setup_logger
 
-if __name__ == "__main__":
+
+def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Running a skeleton prediction network (TPU-native).")
+        description="Running a skeleton prediction network.")
     parser.add_argument("--exp_name", default="test_model", type=str,
                         help="experiment name")
     parser.add_argument("--run_dir", default="run/", type=str,
                         help="result dir")
     parser.add_argument("--config", default="configs/config.yaml",
                         help="config file")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     opts = get_config(args.config)
     opts["save"]["path"]["base"] = args.run_dir
     os.makedirs(args.run_dir, exist_ok=True)
+    enable_compile_cache()
 
     # multi-host launch (SURVEY §7 step 8): initialize jax.distributed
     # BEFORE any device query so jax.devices() is the global set; a missing
@@ -45,3 +48,8 @@ if __name__ == "__main__":
     opts["logger"] = logger
     runner = get_runner(opts["runner"], opts)
     runner.run()
+    return runner
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Edges/s scaling-efficiency benchmark for the partitioned DSTD ops.
 
-North-star harness (BASELINE.json: ">=90% edges/s scaling efficiency on a
-2-host pod slice"): weak-scaling sweep over (data x graph) meshes built
-from the available devices.  Work accounting: the global batch scales with
+Weak-scaling sweep over (data x graph) meshes built from the available
+devices.  Work accounting: the global batch scales with
 the TOTAL device count (``n = per_dev_batch * n_devices``) while the graph
 stays fixed, so per-device work (edges/device) is constant for every
 (data, graph) factorization — efficiency(N) = edges/s(N) / (N * edges/s(1))
@@ -14,7 +13,8 @@ Timing uses ``dstdgcn_tpu.utils.timing.time_looped`` (output-carried
 carry that XLA folded to a no-op — see utils/timing.py and
 tests/test_utils.py for the regression pin).
 
-On a real pod slice this measures ICI collectives; on the CPU backend
+On a multi-GPU host this measures NCCL collectives over NVLink; on the
+CPU backend
 (``python scripts/bench_scaling.py --cpu``, 8 virtual devices) it
 validates the partitioned path and measures partitioning overhead.
 

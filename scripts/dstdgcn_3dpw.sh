@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Train then evaluate DSTD-GCN on 3dpw (TPU). Counterpart of the
+# Train then evaluate DSTD-GCN on 3dpw (one GPU). Counterpart of the
 # reference's scripts/dstdgcn_3dpw.sh (single-GPU CUDA pinning dropped:
 # device selection is JAX_PLATFORMS / mesh-driven here).
 set -e

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Train then evaluate DSTD-GCN on h36m (TPU). Counterpart of the
+# Train then evaluate DSTD-GCN on h36m (one GPU). Counterpart of the
 # reference's scripts/dstdgcn_h36m.sh (single-GPU CUDA pinning dropped:
 # device selection is JAX_PLATFORMS / mesh-driven here).
 set -e

@@ -73,10 +73,9 @@ def test_training_reduces_loss(rng):
 
 
 def test_prng_impl_rbg_trains(rng):
-    """engine.prng_impl: rbg (shipped by the tuned configs — threefry
-    dropout costs ~5 ms/step in the b128 train graph, PROBES_r05) swaps
-    only the dropout random stream; training must behave identically in
-    structure (finite losses, loss decreases)."""
+    """engine.prng_impl: rbg (shipped by the tuned configs) swaps only the
+    dropout random stream; training must behave identically in structure
+    (finite losses, loss decreases)."""
     import jax
 
     eng = PredictionEngine(dict(CFG, prng_impl="rbg"), MODEL)
@@ -131,22 +130,65 @@ def test_checkpoint_roundtrip_rbg(tmp_path, rng):
 
 
 def test_checkpoint_cross_prng_impl_restore(tmp_path, rng):
-    """A checkpoint written under one dropout PRNG restores under the
-    other (e.g. an rbg-trained run evaluated with the threefry parity
-    config): params/optimizer round-trip; only the dropout key falls
-    back to the live one (fresh stream, no model state lost)."""
+    """A checkpoint written under one dropout PRNG does not silently drop
+    its key when restored under the other: the restore names the key and
+    both implementations, and the engine state is left untouched."""
     eng = PredictionEngine(dict(CFG), MODEL)  # threefry writer
     data = _toy_data(rng)
     eng.init(data[0][:1])
     eng.save(str(tmp_path), err=0.7, epoch=2, is_best=False)
     eng2 = PredictionEngine(dict(CFG, prng_impl="rbg"), MODEL)  # rbg reader
     eng2.init(data[0][:1], seed=999)
-    epoch, err = eng2.recover(str(tmp_path / "last.ckpt"))
-    assert epoch == 2 and err == pytest.approx(0.7)
+    before = jax.tree.map(np.asarray, eng2.state.params)
+    with pytest.raises(ValueError, match="dropout_key.*threefry.*rbg"):
+        eng2.recover(str(tmp_path / "last.ckpt"))
     assert "rbg" in str(jax.random.key_impl(eng2.state.dropout_key))
-    for a, b in zip(jax.tree.leaves(eng.state.params),
+    for a, b in zip(jax.tree.leaves(before),
                     jax.tree.leaves(eng2.state.params)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_checkpoint_mismatched_tree_raises(tmp_path, rng):
+    """Restoring into a model of another shape fails loudly, naming the
+    leaves, instead of loading a partial state."""
+    eng = PredictionEngine(dict(CFG), MODEL)
+    data = _toy_data(rng)
+    eng.init(data[0][:1])
+    eng.save(str(tmp_path), err=0.7, epoch=2, is_best=False)
+    deeper = DSTDGCN(input_channels=6, input_time_frame=4,
+                     output_time_frame=4, st_gcnn_dropout=0.1,
+                     joints_to_consider=22, num_feature=8, num_layers=2,
+                     layout="h36m")
+    eng2 = PredictionEngine(dict(CFG), deeper)
+    eng2.init(data[0][:1])
+    with pytest.raises(ValueError, match="missing.*encoder_1"):
+        eng2.recover(str(tmp_path / "last.ckpt"))
+    wider = DSTDGCN(input_channels=6, input_time_frame=4,
+                    output_time_frame=4, st_gcnn_dropout=0.1,
+                    joints_to_consider=22, num_feature=16, num_layers=1,
+                    layout="h36m")
+    eng3 = PredictionEngine(dict(CFG), wider)
+    eng3.init(data[0][:1])
+    with pytest.raises(ValueError, match=r"float32\[22, 8\]"):
+        eng3.recover(str(tmp_path / "last.ckpt"))
+
+
+def test_checkpoint_is_npz_with_tree_paths(tmp_path, rng):
+    """The on-disk format: an .npz of tree-path-named leaves plus the JSON
+    payload, written atomically (no .tmp left behind)."""
+    import json
+
+    eng = PredictionEngine(dict(CFG), MODEL)
+    data = _toy_data(rng)
+    eng.init(data[0][:1])
+    eng.save(str(tmp_path), err=0.25, epoch=3, is_best=True)
+    assert sorted(os.listdir(tmp_path)) == ["best.ckpt", "last.ckpt"]
+    with np.load(tmp_path / "last.ckpt", allow_pickle=False) as z:
+        names = set(z.files)
+        meta = json.loads(str(z["__meta__"]))
+    assert "params/conv_st_in/block/spatial/wf" in names
+    assert "dropout_key" in names
+    assert meta["payload"] == dict(lr=eng.lr, err=0.25, epoch=3)
 
 
 def test_eval_protocol_matches_numpy_reference(rng):
@@ -172,7 +214,7 @@ def test_eval_protocol_matches_numpy_reference(rng):
     out = np.asarray(eng.model.apply(
         {"params": eng.state.params,
          "batch_stats": eng.state.batch_stats},
-        eng.transform(x), train=False)).reshape(8, 8, 66)
+        eng.transform(x), train=False)[0]).reshape(8, 8, 66)
     all_seqs = data[3]
     pred = all_seqs.copy()
     pred[:, :, dims] = out
@@ -257,17 +299,14 @@ def test_multi_output_loss_binding():
     from dstdgcn_tpu.engine import PredictionEngine
 
     class TwoHead:
-        """Minimal multi-output flax-like model."""
+        """Minimal multi-output model with the engine's model protocol."""
 
-        def init(self, rngs, x, train=False):
-            return {"params": {"w": jnp.ones((1,))}}
+        def init(self, key, x):
+            return {"params": {"w": jnp.ones((1,))}, "batch_stats": {}}
 
-        def apply(self, variables, x, train=False, rngs=None, mutable=None):
+        def apply(self, variables, x, train=False, key=None):
             w = variables["params"]["w"]
-            outs = [x * w, x * (2 * w)]
-            if mutable:
-                return outs, {"batch_stats": {}}
-            return outs
+            return [x * w, x * (2 * w)], variables["batch_stats"]
 
     cfg = dict(learn=dict(opt="adam", lr=1e-2, weight_decay=0, gamma=0.9,
                           step_size=5),
@@ -377,36 +416,3 @@ def test_engine_callbacks_config_wiring(tmp_path, rng):
     lines = csv_path.read_text().strip().splitlines()
     assert lines[0].startswith("epoch") and "joint" in lines[0]
     assert len(lines) == 3  # header + 2 epochs
-
-
-def test_fused_inference_eval_matches_standard(rng):
-    """engine.fused_inference routes eval through the whole-encoder Pallas
-    kernel (models/infer.py); per-frame metrics must match the standard
-    model.apply path."""
-    data = _toy_data(rng, n=8)
-    model = DSTDGCN(input_channels=6, input_time_frame=4, output_time_frame=4,
-                    st_gcnn_dropout=0.1, joints_to_consider=22, num_feature=8,
-                    num_layers=2, layout="h36m")
-    eval_args = dict(input_n=4, eval_frame=np.array([0, 1, 3]),
-                     dim_used=np.array(sorted(
-                         j * 3 + k
-                         for j in [2, 3, 4, 5, 7, 8, 9, 10, 12, 13, 14, 15,
-                                   17, 18, 19, 21, 22, 25, 26, 27, 29, 30]
-                         for k in range(3))),
-                     joint_to_ignore=np.array([16, 20, 23, 24, 28, 31]),
-                     joint_to_equal=np.array([13, 19, 22, 13, 27, 30]))
-    metrics = {}
-    for flag in (False, True):
-        eng = PredictionEngine({**CFG, "fused_inference": flag}, model)
-        eng.init(data[0][:1])
-        # one train step so batch_stats move off init
-        loader = Loader(data, batch_size=8)
-        eng.train(loader, epoch=1)
-        avg, metric = eng.test(loader, eval_args["input_n"],
-                               eval_args["eval_frame"],
-                               eval_args["dim_used"],
-                               eval_args["joint_to_ignore"],
-                               eval_args["joint_to_equal"], None, None, "toy")
-        metrics[flag] = np.asarray(metric)
-    np.testing.assert_allclose(metrics[True], metrics[False],
-                               rtol=1e-4, atol=1e-4)

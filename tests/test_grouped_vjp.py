@@ -4,9 +4,7 @@ XLA's autodiff of the block-diagonal grouped formulation materializes
 the FULL (g*P, g*P) cotangent and masks it back to the diagonal blocks
 — which motivated a hand-derived VJP computing ``dadj`` per item
 (C-contraction) and ``dxf`` via the forward's block-diagonal trick.
-Measured on the chip it LOSES (PROBES_r05b interleaved A/B: 42 vs 38
-ms — the per-item dadj GEMM is the MXU-underfill grouping avoids), so
-the default is plain autodiff and the custom path is opt-in
+The default is plain autodiff and the custom path is opt-in
 (DSTDGCN_GROUPED_AGG_VJP=1).  These tests keep the opt-in path honest:
 gradients must match BOTH oracles — autodiff of the ungrouped
 aggregation and autodiff of the grouped implementation itself.

@@ -28,7 +28,6 @@ sys.path.insert(0, os.environ["REPO"])
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax
-jax.config.update("jax_platforms", "cpu")
 try:
     jax.config.update("jax_cpu_collectives_implementation", "gloo")
 except Exception:
@@ -115,7 +114,7 @@ def _run(env, tmp_path, name):
     path.write_text(_WORKER)
     repo = os.path.join(os.path.dirname(__file__), "..")
     full = {**os.environ, **env, "REPO": repo}
-    # the worker must not inherit the host's pinned TPU platform
+    # the worker picks its own platform (CPU) before importing jax
     full.pop("JAX_PLATFORMS", None)
     return subprocess.Popen([sys.executable, str(path)], env=full,
                             stdout=subprocess.PIPE,

@@ -1,7 +1,7 @@
 """Activation parity vs the reference PyTorch model.
 
 The reference implementation (/root/reference, read-only) is imported on CPU,
-its randomly-perturbed weights are converted into our flax pytree, and the
+its randomly-perturbed weights are converted into our parameter pytree, and the
 forward activations are compared allclose — the parity criterion mandated by
 BASELINE.md.  Skipped automatically when the reference checkout or torch is
 unavailable.
@@ -27,7 +27,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from dstdgcn_tpu.models import DSTDGCN  # noqa: E402
-from dstdgcn_tpu.utils.convert import torch_state_to_flax  # noqa: E402
+from dstdgcn_tpu.utils.convert import torch_state_to_params  # noqa: E402
 
 pytestmark = pytest.mark.skipif(RefDSTDGCN is None,
                                 reason="reference repo not available")
@@ -53,7 +53,7 @@ def _models(seed=0):
                     (0.2 * torch.randn_like(m.running_var)).exp())
     sd = {k: v.detach().numpy() for k, v in ref.state_dict().items()}
     ours = DSTDGCN(**CFG)
-    variables = torch_state_to_flax(sd, num_layers=CFG["num_layers"],
+    variables = torch_state_to_params(sd, num_layers=CFG["num_layers"],
                                     joints=CFG["joints_to_consider"])
     return ref, ours, variables
 
@@ -77,7 +77,7 @@ def test_eval_forward_matches():
     x = rng.randn(4, 15, 22, 3).astype(np.float32)
     with torch.no_grad():
         y_ref = ref(torch.from_numpy(x)).numpy()
-    y = ours.apply(variables, jnp.asarray(x), train=False)
+    y, _ = ours.apply(variables, jnp.asarray(x), train=False)
     assert _rel_err(y, y_ref) < 1e-4
 
 
@@ -88,9 +88,9 @@ def test_train_forward_and_batch_stats_match():
     x = rng.randn(4, 15, 22, 3).astype(np.float32)
     with torch.no_grad():
         y_ref = ref(torch.from_numpy(x)).numpy()
-    y, mut = ours.apply(variables, jnp.asarray(x), train=True,
-                        rngs={"dropout": jax.random.key(0)},
-                        mutable=["batch_stats"])
+    y, stats = ours.apply(variables, jnp.asarray(x), train=True,
+                          key=jax.random.key(0))
+    mut = {"batch_stats": stats}
     assert _rel_err(y, y_ref) < 1e-4
 
     # running statistics must update identically (torch BatchNorm1d momentum
@@ -119,8 +119,7 @@ def test_gradients_match():
         y = ours.apply({"params": params,
                         "batch_stats": variables["batch_stats"]},
                        jnp.asarray(x), train=True,
-                       rngs={"dropout": jax.random.key(0)},
-                       mutable=["batch_stats"])[0]
+                       key=jax.random.key(0))[0]
         return jnp.mean(y ** 2)
 
     g = jax.grad(loss_fn)(variables["params"])
@@ -164,7 +163,7 @@ def _fast_models(seed=0):
                     (0.2 * torch.randn_like(m.running_var)).exp())
     sd = {k: v.detach().numpy() for k, v in ref.state_dict().items()}
     ours = DSTDGCN(**CFG, fast=True)
-    variables = torch_state_to_flax(sd, num_layers=CFG["num_layers"],
+    variables = torch_state_to_params(sd, num_layers=CFG["num_layers"],
                                     joints=CFG["joints_to_consider"],
                                     fast=True)
     return ref, ours, variables
@@ -186,7 +185,7 @@ def test_fast_eval_forward_matches():
     x = rng.randn(4, 15, 22, 3).astype(np.float32)
     with torch.no_grad():
         y_ref = ref(torch.from_numpy(x)).numpy()
-    y = ours.apply(variables, jnp.asarray(x), train=False)
+    y, _ = ours.apply(variables, jnp.asarray(x), train=False)
     assert _rel_err(y, y_ref) < 1e-4
 
 
@@ -204,9 +203,9 @@ def test_fast_train_forward_and_batch_stats_match():
     x = rng.randn(4, 15, 22, 3).astype(np.float32)
     with torch.no_grad():
         y_ref = ref(torch.from_numpy(x)).numpy()
-    y, mut = ours.apply(variables, jnp.asarray(x), train=True,
-                        rngs={"dropout": jax.random.key(0)},
-                        mutable=["batch_stats"])
+    y, stats = ours.apply(variables, jnp.asarray(x), train=True,
+                          key=jax.random.key(0))
+    mut = {"batch_stats": stats}
     assert _rel_err(y, y_ref) < 1e-4
 
     ref_stats = {k: v.detach().numpy() for k, v in ref.state_dict().items()
@@ -238,8 +237,7 @@ def test_fast_gradients_match():
         y = ours.apply({"params": params,
                         "batch_stats": variables["batch_stats"]},
                        jnp.asarray(x), train=True,
-                       rngs={"dropout": jax.random.key(0)},
-                       mutable=["batch_stats"])[0]
+                       key=jax.random.key(0))[0]
         return jnp.mean(y ** 2)
 
     g = jax.grad(loss_fn)(variables["params"])
@@ -290,7 +288,7 @@ def test_lockstep_training_convergence():
             if p.requires_grad:
                 p.add_(0.05 * torch.randn_like(p))
     sd = {k: v.detach().numpy() for k, v in ref.state_dict().items()}
-    variables = torch_state_to_flax(sd, num_layers=cfg["num_layers"],
+    variables = torch_state_to_params(sd, num_layers=cfg["num_layers"],
                                     joints=cfg["joints_to_consider"])
 
     # synthetic motion batches: smooth targets; inputs are the dataset's
@@ -396,7 +394,7 @@ def test_lockstep_training_convergence():
     ours_final = DSTDGCN(**cfg).apply(
         {"params": state.params, "batch_stats": state.batch_stats},
         jnp.asarray(tsc(torch.from_numpy(inputs_all[0])).numpy()),
-        train=False)
+        train=False)[0]
     ye_ours = np.asarray(ours_final).reshape(bs, t_all, vc)
     # the end-state OUTPUT difference is chaotic amplification of f32
     # rounding (measured 3.0e-3..8.5e-3 across otherwise-equivalent XLA
@@ -412,7 +410,7 @@ def test_load_reference_pth_checkpoint(tmp_path):
     writes: a bare model state_dict and the engine checkpoint dict
     {lr, err, model, optimizer, scheduler, epoch} with the ModelWrapper
     'model.' prefix (engine/prediction.py:171-182) — migrating a real
-    distributed milestone checkpoint must produce the same flax params
+    distributed milestone checkpoint must produce the same params
     as the in-memory conversion the other parity tests use."""
     from dstdgcn_tpu.utils.convert import load_torch_state_dict
 
@@ -430,7 +428,7 @@ def test_load_reference_pth_checkpoint(tmp_path):
 
     for path in (p1, p2):
         sd = load_torch_state_dict(str(path))
-        got = torch_state_to_flax(sd, num_layers=CFG["num_layers"],
+        got = torch_state_to_params(sd, num_layers=CFG["num_layers"],
                                   joints=CFG["joints_to_consider"])["params"]
         flat_w = jax.tree_util.tree_leaves_with_path(want)
         flat_g = dict(jax.tree_util.tree_leaves_with_path(got))

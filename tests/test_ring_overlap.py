@@ -1,22 +1,19 @@
-"""Ring-collective overlap verification (VERDICT r4 weak #8 / next #5).
+"""Ring-collective overlap verification.
 
-Two layers of evidence that ``dstd_spatial_ring``'s communication
-actually overlaps compute, replacing the former docstring-only claim:
+Two layers of evidence that ``dstd_spatial_ring``'s communication can
+overlap compute:
 
 1. **Dataflow independence** (compiled fresh on the CPU mesh every run):
    no ``ppermute`` send depends on any round's score/mixing/aggregation
-   compute — the property that *permits* the TPU scheduler to hide the
+   compute — the property that *permits* the scheduler to hide the
    transfer.  If a refactor made round r+1's send consume round r's
    output, this fails on any backend.
-2. **Scheduled overlap** (committed artifact
-   ``artifacts/ring_schedule_hlo.txt``, produced by
-   ``scripts/dump_ring_hlo.py`` via an AOT compile against a virtual
-   v5e:2x2 TPU topology): the async ``collective-permute-start``/
-   ``-done`` pairs bracket matmul instructions in the compiled schedule
-   — the transfer is in flight while the MXU works.
+2. **Scheduled overlap** (``hlo_check.check_overlap``): on a scheduled
+   module the async ``collective-permute-start``/``-done`` pairs must
+   bracket matmuls.  The CPU backend emits synchronous permutes, so the
+   parser is checked here on a small GPU-style schedule;
+   ``chip_smoke.py --four-cards`` runs it on the ring's real GPU schedule.
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -25,8 +22,6 @@ import pytest
 
 from dstdgcn_tpu.parallel import hlo_check, make_mesh
 from dstdgcn_tpu.parallel.shard import dstd_spatial_ring
-
-ART = os.path.join(os.path.dirname(__file__), "..", "artifacts")
 
 
 def _ring_args(rng, v=16, t=6, c=8, k=2):
@@ -50,18 +45,37 @@ def test_ring_sends_independent_of_round_compute():
     assert res["violations"] == []
 
 
-def test_committed_tpu_schedule_shows_overlap():
-    path = os.path.join(ART, "ring_schedule_hlo.txt")
-    if not os.path.exists(path):
-        pytest.skip("artifact not present; run scripts/dump_ring_hlo.py")
-    txt = open(path).read()
-    nshard = 4  # v5e:2x2 topology, graph axis = 4 (dump_ring_hlo.py)
-    overlap = hlo_check.check_overlap(txt)
-    assert overlap["num_pairs"] == 2 * (nshard - 1)
-    # every permute pair COULD overlap; assert the scheduler actually
-    # brackets compute with at least nshard-1 of them (measured: the
-    # payload-bearing xf-chunk transfers all overlap; two tiny q-chunk
-    # f32 transfers are scheduled back-to-back, which costs nothing)
-    assert overlap["num_overlapped"] >= nshard - 1
-    indep = hlo_check.check_send_independence(txt)
-    assert indep["violations"] == []
+_SCHEDULED = """HloModule ring, is_scheduled=true
+
+%fused_dot (p0: f32[4,4], p1: f32[4,4]) -> f32[4,4] {
+  %p0 = f32[4,4]{1,0} parameter(0)
+  %p1 = f32[4,4]{1,0} parameter(1)
+  ROOT %d = f32[4,4]{1,0} dot(%p0, %p1), lhs_contracting_dims={1}, rhs_contracting_dims={0}
+}
+
+ENTRY %main (a: f32[4,4], b: f32[4,4]) -> f32[4,4] {
+  %a = f32[4,4]{1,0} parameter(0)
+  %b = f32[4,4]{1,0} parameter(1)
+  %cp-start = (f32[4,4]{1,0}, f32[4,4]{1,0}) collective-permute-start(%a), source_target_pairs={{0,1},{1,0}}
+  %gemm = f32[4,4]{1,0} custom-call(%a, %b), custom_call_target="__cublas$gemm"
+  %cp-done = f32[4,4]{1,0} collective-permute-done(%cp-start)
+  %cp-start.1 = (f32[4,4]{1,0}, f32[4,4]{1,0}) collective-permute-start(%cp-done), source_target_pairs={{0,1},{1,0}}
+  %cp-done.1 = f32[4,4]{1,0} collective-permute-done(%cp-start.1)
+  %fusion = f32[4,4]{1,0} fusion(%cp-done.1, %gemm), kind=kCustom, calls=%fused_dot
+  ROOT %out = f32[4,4]{1,0} add(%fusion, %b)
+}
+"""
+
+
+def test_check_overlap_reads_a_gpu_schedule():
+    ov = hlo_check.check_overlap(_SCHEDULED)
+    assert ov["num_pairs"] == 2
+    assert ov["num_overlapped"] == 1
+    assert ov["pairs"][0]["compute_between"] == ["gemm"]
+    assert ov["pairs"][1]["compute_between"] == []
+
+
+def test_check_overlap_rejects_unscheduled_hlo():
+    with pytest.raises(AssertionError, match="not scheduled"):
+        hlo_check.check_overlap(_SCHEDULED.replace("is_scheduled=true",
+                                                   ""))

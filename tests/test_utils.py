@@ -102,8 +102,8 @@ def test_plot_expmap_multi_writes_gif(tmp_path):
 
 def test_all_shipped_configs_load_and_build_model():
     """Every configs/*.yaml parses through the config system and its
-    model block constructs the registered flax module with those exact
-    keys (guards perf-knob configs, e.g. dstdgcn_h36m_tpu.yaml, against
+    model block constructs the registered model with those exact keys
+    (guards perf-knob configs, e.g. dstdgcn_h36m_tuned.yaml, against
     constructor drift)."""
     import glob
 
@@ -125,7 +125,6 @@ def test_all_shipped_configs_load_and_build_model():
         v = int(opts["joints_to_consider"])
         x = jnp.zeros((1, t_in + t_out, v, opts["input_channels"] // 2),
                       jnp.float32)
-        variables = model.init({"params": jax.random.key(0)}, x,
-                               train=False)
-        out = model.apply(variables, x, train=False)
+        variables = model.init(jax.random.key(0), x)
+        out, _ = model.apply(variables, x, train=False)
         assert out.shape == x.shape, path
